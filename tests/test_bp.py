@@ -2,7 +2,7 @@
 
 BP32 (codec/bp_ref.py spec) replaces LZ4-byte-planes on index-like integer
 streams when smaller. The reference has no equivalent — its integer path is
-LZ4 whose decode is inherently sequential (lz4.c:1658); BP32 is the TPU-first
+LZ4 whose decode is inherently sequential (lz4.c:1658); BP32 is the data-parallel
 redesign with closed-form parallel decode on device (codec/bp_jax.py).
 """
 

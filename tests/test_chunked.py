@@ -266,7 +266,7 @@ def test_fill_container_corrupt_rejected():
 def test_f64_odd_chunk_len_rounds_before_chunking(layout, optimize):
     """An odd f64 chunk_len is rounded to even BEFORE n_chunks is computed.
 
-    Regression: the TPU branch used to round after n_chunks was derived from
+    Regression: the device branch used to round after n_chunks was derived from
     the odd value, so the ref-layout adaptive fallthrough sliced fewer
     values than the container declared — silently dropping the tail (caught
     as a framing error on decode at best)."""

@@ -1,4 +1,4 @@
-"""f64 TPU chunk codec tests (hi/lo uint32-pair arithmetic vs the oracle)."""
+"""f64 device chunk codec tests (hi/lo uint32-pair arithmetic vs the oracle)."""
 
 import numpy as np
 import pytest

@@ -1,4 +1,4 @@
-"""TPU chunk-parallel FP codec tests (run on CPU backend via conftest).
+"""Chunk-parallel FP device codec tests (run on CPU backend via conftest).
 
 Each chunk payload must be bit-identical to the scalar oracle encoding of that
 chunk — chunking is a framing concept, not a format change. Both packing paths
@@ -237,8 +237,8 @@ class TestSortPredictor:
 
 
 def test_v2_row_blocking_matches_oracle(monkeypatch):
-    """Row-blocked v2 entry points (the XLA:TPU large-batch miscompile
-    workaround, scripts/tpu_split_probe.py) are bit-identical to the oracle,
+    """Row-blocked v2 entry points (the large-batch miscompile fence,
+    scripts/xla_miscompile_repro.py) are bit-identical to the oracle,
     including the zero-padding path (C not a multiple of the block)."""
     import jax.numpy as jnp
 
@@ -284,20 +284,22 @@ def test_v2_f64_row_blocking_roundtrip(monkeypatch):
 
 
 def test_pallas_tables_fit_gate():
-    """ADVICE r2 low: the Pallas one-hot predictor must not be attempted when
-    the hash tables exceed the VMEM budget (e.g. e2>=14 at L=4096) — those
-    exponents fall back to the sort predictor."""
-    from trico_tpu.codec.fp_jax import _pallas_tables_fit
+    """The Pallas replay kernel is only attempted when its register tables
+    fit (2^e1 + 2^e2 <= replay_triton.MAX_TABLE_ROWS): the adaptive
+    candidates (0,6)/(4,6)/(4,10) do, the big-table (14,18) and f64-class
+    exponents replay through the XLA scan or on host threads instead."""
+    from trico_tpu.codec.replay_triton import tables_fit
 
-    assert _pallas_tables_fit(4096, 4, 10)   # production defaults fit
-    assert _pallas_tables_fit(1024, 4, 12)
-    assert not _pallas_tables_fit(4096, 16, 20)  # f64-class tables don't
-    assert not _pallas_tables_fit(4096, 4, 16)
+    assert tables_fit(4, 10)   # adaptive candidate (1040 rows)
+    assert tables_fit(4, 6)    # chunked default
+    assert not tables_fit(16, 20)  # f64-class tables don't
+    assert not tables_fit(4, 16)
 
 
 def test_large_exponent_encode_falls_back(monkeypatch):
-    """Encodes with large-table exponents must work even when the Pallas
-    predictor is forced on (gate falls back to the sort predictor)."""
+    """Encodes with large-table exponents work under any TRICO_TPU_PREDICT
+    value: an unknown mode (here the removed 'pallas') selects the default
+    sort predictor."""
     monkeypatch.setenv("TRICO_TPU_PREDICT", "pallas")
     vals = mesh_like_floats(2048).view(np.uint32).reshape(2, 1024)
     bc, res = fp_jax.predict_f32_chunks(jnp.asarray(vals), 12, 18)

@@ -1,4 +1,4 @@
-"""TPU LZ4 match-finder tests: candidate quality, valid emission, ratio."""
+"""Device LZ4 match-finder tests: candidate quality, valid emission, ratio."""
 
 import numpy as np
 import pytest

@@ -3,7 +3,7 @@
 Launches 2 cooperating OS processes via ``jax.distributed.initialize`` on a
 localhost Gloo backend (each with 2 virtual CPU devices → one global 4-device
 mesh) and runs the full ``compress_mesh``/``decompress_mesh`` product across
-them — the very code path a real multi-host TPU pod takes over DCN, including
+them — the code path a multi-host deployment takes across processes, including
 ``multihost_utils.process_allgather`` in ``mesh_codec._gather_to_host``.
 
 Asserts: every rank round-trips bit-exactly AND produces byte-identical

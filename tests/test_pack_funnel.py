@@ -1,5 +1,4 @@
-"""Word-funnel pack (pack_funnel.py) vs the byte-slot network, and the
-Pallas merging-compaction / FCM-multi kernels in interpret mode."""
+"""Word-funnel pack (pack_funnel.py) vs the byte-slot network."""
 
 import functools
 import os
@@ -9,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from trico_tpu.codec import fp_jax, fp_pallas, pack_funnel
+from trico_tpu.codec import fp_jax, pack_funnel
 
 LENS_TAB = np.array([0, 1, 2, 3, 4, 1, 2, 3])
 
@@ -51,46 +50,6 @@ def test_funnel_equals_slot_network(L, all_code):
         jnp.asarray(bc), jnp.asarray(res))
     np.testing.assert_array_equal(np.asarray(s_new), s_old)
     np.testing.assert_array_equal(np.asarray(p_new), p_old)
-
-
-def test_pair_compact_interpret_parity():
-    """The Pallas merging-compaction kernel matches the XLA formulation."""
-    rng = np.random.default_rng(13)
-    C, L = 4, 512
-    _, res, lens = _rand_bcode_res(rng, C, L)
-    r_xla, n_xla = jax.jit(pack_funnel.region_bytes_f32)(
-        jnp.asarray(lens), jnp.asarray(res))
-    orig = pack_funnel._pair_compact_or
-
-    def patched(dest, payload, live, S):
-        disp = jnp.arange(S, dtype=jnp.int32)[None, :] - dest
-        carrier = jnp.where(live, (disp.astype(jnp.uint32) << 1) | 1, 0)
-        payload = jnp.where(live, payload, 0)
-        nbits = max(S - 1, 1).bit_length()
-        return fp_pallas.pair_compact_or_pallas(carrier, payload, nbits, True)
-
-    pack_funnel._pair_compact_or = patched
-    try:
-        r_int, n_int = jax.jit(pack_funnel.region_bytes_f32)(
-            jnp.asarray(lens), jnp.asarray(res))
-    finally:
-        pack_funnel._pair_compact_or = orig
-    np.testing.assert_array_equal(np.asarray(n_int), np.asarray(n_xla))
-    np.testing.assert_array_equal(np.asarray(r_int), np.asarray(r_xla))
-
-
-def test_fcm_multi_kernel_interpret_parity():
-    """FCM-only multi-exponent kernel == the FCM half of the scan predictor."""
-    rng = np.random.default_rng(17)
-    C, L = 4, 256
-    vals = (np.sin(np.linspace(0, 40, C * L)) * 9
-            + rng.normal(0, 1e-3, C * L).cumsum()).astype(np.float32)
-    v = jnp.asarray(vals.view(np.uint32).reshape(C, L))
-    outs = fp_pallas.predict_fcm_xors_pallas(v, (2, 6), True)
-    for e1, got in zip((2, 6), outs):
-        want, _ = fp_jax._predict_sort(v, e1, 6)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want),
-                                      err_msg=f"e1={e1}")
 
 
 def test_adaptive_candidates_shared_e2_matches_generic():

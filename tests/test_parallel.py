@@ -12,7 +12,15 @@ from trico_tpu.codec import fp_jax, fp_ref
 from trico_tpu.parallel import mesh_codec
 from conftest import mesh_like_floats
 
-needs8 = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
+@pytest.fixture
+def eight_devices():
+    """Skip unless the backend has 8 devices — decided at run time, not at
+    import, so every xdist worker collects the same tests."""
+    if len(jax.devices()) < 8:
+        pytest.skip("needs 8 devices")
+
+
+needs8 = pytest.mark.usefixtures("eight_devices")
 
 
 @needs8

@@ -116,7 +116,7 @@ def test_resumable_partial_decode():
 
 def test_deterministic_output():
     """Race-detection stand-in: encoding is bit-deterministic across runs and
-    across backends (numpy vs native vs chunked-TPU paths are separately
+    across backends (numpy vs native vs chunked device paths are separately
     verified; here: repeated runs byte-identical)."""
     verts = np.stack([mesh_like_floats(2000, s) for s in (3, 4, 5)], axis=1)
     blobs = set()

@@ -1,12 +1,12 @@
-"""trico-tpu: a TPU-native lossless mesh / point-cloud compression framework.
+"""trico-tpu: a lossless mesh / point-cloud compression framework in JAX.
 
 Drop-in capability parity with the trico C library (archive format, codecs,
-mesh I/O, CLI tools), re-designed TPU-first:
+mesh I/O, CLI tools), re-designed for a data-parallel device (a CUDA GPU):
 
 * :mod:`trico_tpu.archive` — the trico container (reference-compatible v0 and
   chunk-parallel v1 archives): :class:`ArchiveWriter`, :class:`ArchiveReader`.
-* :mod:`trico_tpu.codec` — codecs: NumPy oracle (``fp_ref``), TPU
-  chunk-parallel JAX kernels (``fp_jax``), LZ4 fallback (``lz4_ref``),
+* :mod:`trico_tpu.codec` — codecs: NumPy oracle (``fp_ref``), device
+  chunk-parallel JAX codecs (``fp_jax``, ``replay_triton``), LZ4 fallback (``lz4_ref``),
   transposes.
 * :mod:`trico_tpu.native` — C++ host runtime (scalar FP codec, LZ4 block
   codec, pack/parse marshalling), built on demand.

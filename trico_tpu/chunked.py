@@ -9,11 +9,11 @@ flags bit 0: element width (0 = f32/u32, 1 = f64/u64).
 flags bit 1: payload kind (set = chunked LZ4 container, see encode_lz4_chunked).
 flags bit 2: chunk layout (0 = reference layout, 1 = "tpu" v2 layout: same
 bytes with the group tags front-loaded — fp_jax.pack_f32_chunks_v2 — so decode
-is gather-free on TPU). The final partial chunk, if any, always uses the
+is gather-free on the device). The final partial chunk, if any, always uses the
 reference layout (it is host-coded either way); relayout is a pure byte
 permutation, so sizes are identical across layouts.
 flags bit 3: BP32/64 bit-plane integer container (FORMAT.md §6,
-codec/bp_ref.py) — the TPU-native integer codec, picked per stream when
+codec/bp_ref.py) — the device integer codec, picked per stream when
 smaller than LZ4 byte planes (encode_int_best).
 flags == 10 (bits 1+3 together): "fill" container — the whole plane is one
 repeated byte: ``[u8 1][u8 10][u32 total][u32 total][u32 1][u32 1][u8 value]``
@@ -26,7 +26,7 @@ Every chunk payload holds ``chunk_len`` values (final chunk: the remainder)
 with a standard FP substream header (hash_info byte, big-endian count — see
 fp_ref.py); reference-layout chunks are verbatim reference FP substreams.
 Chunks are independent codec instances, so encode and decode are
-embarrassingly parallel across chunks — this is what the TPU kernels
+embarrassingly parallel across chunks — this is what the device codecs
 (fp_jax.py) and the multi-chip path (trico_tpu/parallel) exploit. The framing
 is self-describing and skippable, preserving the archive property that any
 stream can be skipped without decoding (SURVEY.md §5 checkpoint/resume notes).
@@ -46,21 +46,21 @@ from .codec import fp_ref
 
 DEFAULT_CHUNK_LEN = 4096
 # Chunked-mode hash exponents: e2=6 costs ~0.4% ratio vs (4,10) on mesh data
-# (and is byte-identical on the bench stream) but runs the one-hot DFCM table
-# 4x faster on TPU than e2=8's 256 rows (VMEM one-hot scan is linear in the
-# table height). Self-describing via each chunk's hash_info byte.
+# (and is byte-identical on the bench stream) but keeps the one-hot DFCM
+# replay table at 64 rows (replay cost is linear in the table height).
+# Self-describing via each chunk's hash_info byte.
 F32_TPU_EXP = (4, 6)
 
 
 def _tpu_available() -> bool:
-    """True when a non-CPU JAX backend initializes; never raises (a pinned but
-    unavailable platform plugin would otherwise abort host-only encode/decode)."""
-    try:
-        import jax
+    """True when JAX's default device is an accelerator (a GPU). A backend
+    that fails to start, or a platform with no route, raises."""
+    from .codec import fp_jax
 
-        return jax.default_backend() != "cpu"
-    except Exception:
-        return False
+    fp_jax.kernel_route()  # raises on a platform with no route
+    import jax
+
+    return jax.devices()[0].platform != "cpu"
 
 
 def _host_fp_encode(vals, e1, e2):
@@ -244,7 +244,7 @@ def host_decode_full_chunks(mat: np.ndarray, sizes_arr, idx, chunk_len: int,
     otherwise. ``sizes_arr`` aligns with ``mat`` rows; "tpu"-layout payloads
     are relaid out to the reference chunk layout first (a byte permutation —
     sizes are unchanged). Shared by :func:`decode_chunked` and
-    ``mesh_codec.decode_plane_sharded`` so the two VMEM-infeasible-exponent
+    ``mesh_codec.decode_plane_sharded`` so the two big-table-exponent
     fallbacks cannot drift apart."""
     from . import native
 
@@ -286,7 +286,7 @@ def encode_chunked(values: np.ndarray, chunk_len: int = DEFAULT_CHUNK_LEN,
                    optimize: bool | str = False) -> bytes:
     """Encode a uint32/uint64 raw-bits stream into a chunked container.
 
-    f32 full chunks go through the TPU path (``fp_jax``) when a non-CPU JAX
+    f32 full chunks go through the device path (``fp_jax``) when a GPU JAX
     backend is available (or when ``use_tpu=True``); everything else uses the
     host codec. Output bytes are identical either way for a given ``layout``
     ("ref" = reference chunk layout; "tpu" = v2 tags-first layout, the fast
@@ -316,7 +316,7 @@ def encode_chunked(values: np.ndarray, chunk_len: int = DEFAULT_CHUNK_LEN,
         chunk_len = (chunk_len // 8) * 8 or 8
     else:
         # even chunks: the v2 f64 pack works in 2-value groups. Rounding here
-        # (before n_chunks) keeps every downstream path consistent — the TPU
+        # (before n_chunks) keeps every downstream path consistent — the device
         # branch previously rounded after n_chunks was computed, so an odd
         # chunk_len falling through to the host loop dropped tail values.
         chunk_len = (chunk_len // 2) * 2 or 2
@@ -325,8 +325,8 @@ def encode_chunked(values: np.ndarray, chunk_len: int = DEFAULT_CHUNK_LEN,
     from .codec.fp_jax import F32_TPU_CANDIDATES, F32_TPU_CANDIDATES_FAST
 
     # optimize="fast": throughput profile — only small-table candidates, so
-    # every predictor pass stays on the VMEM one-hot kernels (~7x the
-    # device adaptive rate; archives a few % larger; still self-describing)
+    # every chunk decodes on the device (archives a few % larger; still
+    # self-describing)
     if bits == 32:
         opt_cands = (F32_TPU_CANDIDATES_FAST if optimize == "fast"
                      else F32_TPU_CANDIDATES)
@@ -428,7 +428,7 @@ def encode_lz4_chunked(plane: np.ndarray, block_len: int = DEFAULT_LZ4_BLOCK,
     """Chunked-LZ4 container: independent LZ4 blocks of ``block_len`` bytes.
 
     flags byte = 2 distinguishes it from FP containers. Device match search
-    (lz4_jax) for full blocks when a TPU backend is up; host codec otherwise.
+    (lz4_jax) for full blocks when a GPU backend is up; host codec otherwise.
     Blocks decode independently → parallel/resumable integer streams.
     """
     from . import native
@@ -468,9 +468,9 @@ def encode_bp_chunked(values: np.ndarray, chunk_len: int = DEFAULT_BP_CHUNK,
                       use_tpu: bool | None = None) -> bytes:
     """BP32 chunked container (flags bit 3): bit-plane-packed zigzag deltas.
 
-    The TPU-native integer codec (format: codec/bp_ref.py) — gather-free
+    The device integer codec (format: codec/bp_ref.py) — gather-free
     parallel decode, unlike the LZ4 token walk. u32 full chunks run on device
-    when a TPU backend is up; u64 and tails use the threaded native codec.
+    when a GPU backend is up; u64 and tails use the threaded native codec.
     Chunks restart deltas from 0, so they decode independently."""
     from . import native
 
@@ -744,15 +744,12 @@ def decode_chunked(data, use_tpu: bool | None = None) -> tuple[np.ndarray, int]:
                 e1 = (int(hi) >> 4) << 1
                 e2 = (int(hi) & 15) << 1
                 # predictor replay needs (2^e1 + 2^e2)-row one-hot tables on
-                # device, at cost linear in the row count (a 5120-row (10,12)
-                # replay measured 0.25 GB/s on v5e — fp64_jax candidate
-                # notes); past this bound the independent chunks decode on
-                # host threads at C speed instead (tt_fp*_decode_blocks), or
-                # — when
-                # the native toolchain is unavailable — through the pure
-                # per-chunk host oracle (the device program would materialize
-                # 2^e2-row one-hot tables per scan step and OOM/hang,
-                # ADVICE r4 medium)
+                # device, at cost linear in the row count; past this bound the
+                # independent chunks decode on host threads at C speed
+                # instead (tt_fp*_decode_blocks), or — when the native
+                # toolchain is unavailable — through the pure per-chunk host
+                # oracle (the device program would materialize 2^e2-row
+                # one-hot tables per scan step and run out of memory)
                 if (1 << e1) + (1 << e2) > (1 << 12):
                     vals = host_decode_full_chunks(mat, sizes, idx, chunk_len,
                                                    bits, layout)

@@ -1,16 +1,16 @@
-"""BP32 device codec — bit-plane-packed zigzag deltas (u32), JAX/XLA+Pallas.
+"""BP32 device codec — bit-plane-packed zigzag deltas (u32), JAX/XLA.
 
-Format defined by the NumPy oracle in bp_ref.py. This is the TPU-native
-integer coder: both encode and decode are gather-free array programs built
-from the same monotone log-shift compaction the FP codec uses
-(fp_jax._compact_monotone/_expand_monotone — VMEM Pallas kernels on real
-TPUs), so integer streams run the full encode→decode pipeline on device and
-shard over a mesh chunk axis exactly like FP streams (mesh_codec).
+Format defined by the NumPy oracle in bp_ref.py. This is the device integer
+coder: both encode and decode are gather-free array programs built from the
+same monotone log-shift compaction the FP codec uses
+(fp_jax._compact_monotone/_expand_monotone), so integer streams run the full
+encode→decode pipeline on device and shard over a mesh chunk axis exactly
+like FP streams (mesh_codec).
 
 Contrast with the scheme it replaces: the reference's integer path is a byte
 plane shuffle + LZ4 (trico.c:323-378), whose decode is a strictly sequential
 token walk (lz4.c:1658) that cannot vectorize on any SIMD hardware — a
-fundamental mismatch for TPU. BP32's group-of-32 bit-planes need no
+fundamental mismatch for a data-parallel device. BP32's group-of-32 bit-planes need no
 variable-length *parsing*: plane offsets are a cumsum of the width header,
 every byte's position is closed-form, and the group payload is exactly
 4*width bytes.
@@ -171,7 +171,7 @@ def _decode_bp32_impl(payloads, L):
 
 
 # ---------------------------------------------------------------------------
-# u64 variant: values carried as (hi, lo) u32 word pairs (TPUs have no native
+# u64 variant: values carried as (hi, lo) u32 word pairs (no process-wide x64 mode; the
 # 64-bit integer path — same convention as the f64 FP codec, fp64_jax.py).
 # Up to 64 bit-planes per group; otherwise identical structure to u32.
 # ---------------------------------------------------------------------------

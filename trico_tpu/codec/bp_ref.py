@@ -1,10 +1,10 @@
 """BP32 — bit-plane-packed zigzag-delta integer codec (NumPy oracle).
 
-The TPU-native replacement for LZ4-on-byte-planes on *index-like* integer
+The device-friendly replacement for LZ4-on-byte-planes on *index-like* integer
 streams (triangle indices, monotone-ish attribute ids). The reference
 compresses integer streams with a byte-plane shuffle + LZ4
 (/root/reference/trico/trico.c:323-378 + lz4/lz4.c) whose decode is a
-strictly sequential copy loop (lz4.c:1658) — unvectorizable on TPU. BP32 is
+strictly sequential copy loop (lz4.c:1658) — unvectorizable on a data-parallel device. BP32 is
 designed from the hardware up instead:
 
 * **zigzag delta** over the flat element stream (connectivity indices are

@@ -1,13 +1,13 @@
-"""TPU chunk-parallel FCM/DFCM codec for 64-bit (double-precision) streams.
+"""Chunk-parallel FCM/DFCM codec for 64-bit (double-precision) streams.
 
-TPUs have no native 64-bit integer path, so values are carried as (hi, lo)
-uint32 pairs through the same lane-parallel scan as the f32 kernel
-(fp_jax.py): chunks on the lane axis, hash tables as (C, T) pairs updated by
+Values are carried as (hi, lo) uint32 pairs (no process-wide x64 mode
+needed) through the same lane-parallel scan as the f32 codec (fp_jax.py):
+chunks on the lane axis, hash tables as (C, T) pairs updated by
 one-hot compare/select, add/sub with explicit borrow/carry, shifts by
 ``64 - e >= 34`` reading only the hi word. Group = 2 values, 1 tag byte of two
 4-bit bcodes (reference fps.c:421-561; format notes in fp_ref.py).
 
-Byte packing/parsing runs all-device for the v2 "tpu" layout
+Byte packing/parsing runs all-device for the v2 ("tpu" flag) layout
 (:func:`pack_f64_chunks_v2` / :func:`parse_f64_chunks_v2` — the same monotone
 log-shift networks as f32, with 8 candidate bytes per value), so doubles run
 the full encode→decode pipeline on device exactly like f32 (reference f64
@@ -66,7 +66,7 @@ def _predict_sort64(hi, lo, e1, e2):
     bits of v[i-1] (hi word only — 64-e1 >= 34), DFCM's is
     ``t[i-1] ^ ((t[i-2] << e2/2) & m2)`` with t = stride >> (64-e2). Cost is
     independent of the table size, which makes the reference's (20,20)
-    defaults (2^20-entry tables — impossible as one-hot VMEM scans) run at
+    defaults (2^20-entry tables — impractical as one-hot scans) run at
     full device speed. Requires e + ceil(log2 L) <= 32.
     """
     C, L = hi.shape
@@ -98,21 +98,11 @@ def _predict_sort64(hi, lo, e1, e2):
 def predict_f64_chunks(hi: jax.Array, lo: jax.Array, e1: int = 20, e2: int = 20):
     """(C, L) uint32 hi/lo words → (bcode (C, L) uint8, res hi/lo (C, L)).
 
-    Backend order: the VMEM Pallas predictor kernel on real TPUs when the
-    four hash tables fit (the (4,6) chunked default); else the scan-free
-    sort predictor whenever the sort keys fit (the only practical backend
-    for the reference's (20,20) table exponents on device); else the
-    one-hot lane scan. All bit-identical."""
-    from .fp_jax import _use_pallas
-
+    Backend order: the scan-free sort predictor whenever the sort keys fit
+    (the only practical backend for the reference's (20,20) table exponents
+    on device); else the one-hot lane scan. Bit-identical."""
     e1, e2 = _norm_exponents(e1, e2)
     C, L = hi.shape
-    if (_use_pallas() and L % 1024 in (0, L)
-            and 2 * ((1 << e1) + (1 << e2)) <= (1 << 13)):
-        from . import fp_pallas
-
-        x1h, x1l, x2h, x2l = fp_pallas.predict64_xors_pallas(hi, lo, e1, e2)
-        return _bcode_res_from_xors64(x1h, x1l, x2h, x2l)
     lbits = max(L - 1, 1).bit_length()
     if e1 + lbits <= 32 and e2 + lbits <= 32:
         x1h, x1l, x2h, x2l = _predict_sort64(hi, lo, e1, e2)
@@ -198,17 +188,8 @@ def replay_f64_chunks(bcodes: jax.Array, xhi: jax.Array, xlo: jax.Array,
                       e1: int = 20, e2: int = 20):
     """Decode replay: parsed (C, L) (bcode, xor hi/lo) → value hi/lo words.
 
-    VMEM Pallas kernel on real TPUs when the four hash tables fit (the
-    (4,6) chunked default: measured 0.87 → multi-GB/s); XLA scan elsewhere.
-    Bit-identical either way."""
-    from .fp_jax import _use_pallas
-
-    e1n, e2n = _norm_exponents(e1, e2)
-    if (_use_pallas() and xhi.shape[1] % 1024 in (0, xhi.shape[1])
-            and 2 * ((1 << e1n) + (1 << e2n)) <= (1 << 13)):
-        from . import fp_pallas
-
-        return fp_pallas.replay64_pallas(bcodes, xhi, xlo, e1, e2)
+    An XLA ``lax.scan`` over positions on every platform (the f64 twin of
+    ``fp_jax._replay_scan``)."""
     e1, e2 = _norm_exponents(e1, e2)
     C, L = xhi.shape
     T1, T2 = 1 << e1, 1 << e2
@@ -264,7 +245,7 @@ def _split_words(values_u64: np.ndarray):
 
 def encode_f64(values_u64: np.ndarray, chunk_len: int, e1: int = 20, e2: int = 20,
                layout: str = "ref"):
-    """Encode a flat uint64 stream in TPU chunks (device predict + native pack
+    """Encode a flat uint64 stream in device chunks (device predict + native pack
     for ``layout="ref"``; all-device for ``layout="tpu"`` v2 payloads).
 
     Returns (payloads (C, B) uint8, sizes (C,) int64, tail_values).
@@ -376,7 +357,7 @@ def decode_f64(payloads: np.ndarray, chunk_len: int, e1: int = 20, e2: int = 20,
 
 
 # ---------------------------------------------------------------------------
-# v2 "TPU layout" for f64 chunks (see fp_jax.py): [5B header][G tag bytes]
+# v2 ("tpu" flag) layout for f64 chunks (see fp_jax.py): [5B header][G tag bytes]
 # [residual bytes in value order]. Pure permutation of the reference layout;
 # decode is gather-free (slices + cumsums + two monotone log-shift networks).
 # ---------------------------------------------------------------------------
@@ -506,16 +487,14 @@ def encode_f64_chunks_v2(hi: jax.Array, lo: jax.Array, e1: int = 20, e2: int = 2
 
 
 # Adaptive per-chunk f64 exponent candidates. (4,6) keeps the one-hot tables
-# tiny (16+64 rows — same replay cost per word as the f32 default), so
-# device decode runs at full speed; (20,20) is the reference default
-# (trico.c:396), which wins big on f32-widened meshes (its 2^20-row tables
-# memorize the sparse mantissa patterns; measured +11% for small tables on
-# bunny64_y) and decodes on host threads. Corpus measurement (bunny64 x/y/z
-# widened, random-walk, stride, quantized-grid, geodetic doubles): (4,6) is
-# within 0.1% of (10,12)/(12,12)/(14,14) on every stream — larger
-# VMEM-viable tables buy nothing on doubles, and (10,12)'s 5120-row one-hot
-# replay measured 0.25 GB/s on device vs the small-table kernel's multi-GB/s.
-# (4,6) is FIRST so equal-size chunks take the fast device-decodable pair.
+# tiny (16+64 rows), so its chunks replay on the device; (20,20) is the
+# reference default (trico.c:396), which wins big on f32-widened meshes (its
+# 2^20-row tables memorize the sparse mantissa patterns; measured +11% for
+# small tables on bunny64_y) and decodes on host threads. Corpus measurement
+# (bunny64 x/y/z widened, random-walk, stride, quantized-grid, geodetic
+# doubles): (4,6) is within 0.1% of (10,12)/(12,12)/(14,14) on every stream —
+# larger tables buy nothing on doubles. (4,6) is FIRST so equal-size chunks
+# take the device-decodable pair.
 # r5 corpus re-measurement (per-chunk best-of at L=4096, VERDICT r3 task 4 /
 # r4 weak #1): on a real f64 surface ("double" class) and bunny widened to
 # f64, adding the mid-table pairs moves the needle only marginally but
@@ -531,7 +510,7 @@ def encode_f64_chunks_v2(hi: jax.Array, lo: jax.Array, e1: int = 20, e2: int = 2
 # decode_chunked's identical check), same as (20,20).
 F64_TPU_CANDIDATES = ((4, 6), (10, 12), (10, 16), (20, 20))
 # The optimize="fast" profile: small-table candidates only, so every chunk
-# encodes on the VMEM one-hot kernels and decodes on device (mirror of
+# decodes on device (mirror of
 # fp_jax.F32_TPU_CANDIDATES_FAST) — keep in sync with the set above.
 F64_TPU_CANDIDATES_FAST = ((4, 6),)
 

@@ -1,4 +1,4 @@
-"""TPU-native (JAX/XLA) chunk-parallel FCM/DFCM floating-point codec.
+"""Chunk-parallel FCM/DFCM floating-point codec in JAX/XLA.
 
 The stream is split into fixed-length chunks; each chunk is an independent
 codec instance with fresh predictor state, exactly like the reference isolates
@@ -7,24 +7,22 @@ self-describing reference FP substream (format notes in fp_ref.py), so chunks
 are decodable by any trico-compatible decoder; the container framing lives in
 :mod:`trico_tpu.chunked`.
 
-TPU mapping (measured on v5e):
+Device mapping:
 
-* The predictor recurrence is *sequential within a chunk* but embarrassingly
-  parallel across chunks. We lay data out as (L, C) — positions along the
-  sequential axis, chunks along the 128-wide lane axis — and run one
-  ``lax.scan`` over positions with the hash tables carried as (C, T) arrays.
-  Table reads/writes are one-hot compare/select ops over the small table
-  axis: pure VPU work, no gather/scatter (both are slow on TPU).
+* The encode predictor has closed forms (``_predict_sort``): each table read
+  is "the payload at the previous occurrence of my key", computed with two
+  sorts, no sequential loop, cost independent of the table size.
+* Decode replay is sequential within a chunk but parallel across chunks: on
+  the GPU one Pallas-Triton kernel runs the whole loop
+  (:mod:`.replay_triton`); elsewhere a ``lax.scan`` over positions carries the
+  hash tables as (C, T) arrays updated by one-hot compare/select.
 * Byte packing (variable-length residual emission) has two paths:
   - host path: the native C++ packer (``tt_fp32_pack_chunks``) marshals
-    (bcode, residual) arrays at memory bandwidth — used by the production
-    numpy-facing API;
+    (bcode, residual) arrays at memory bandwidth;
   - device path: byte displacements are monotone in stream order, so
-    compaction runs as a log-shift network (~log2(4L) shifted-select passes,
-    several times cheaper than a bitonic ``lax.sort``; vmapped searchsorted
-    measured 200x slower than either).
-* Decode parses tags with a scan over groups, then replays the predictors
-  with the same one-hot table scan.
+    compaction runs as a log-shift network (~log2(4L) shifted-select passes).
+* Decode parses the v2 layout with static tag offsets and two monotone
+  log-shift networks — no scan, no gather.
 """
 
 from __future__ import annotations
@@ -35,34 +33,55 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from . import replay_triton
+
 _LEN32_NP = np.array([0, 1, 2, 3, 4, 1, 2, 3], dtype=np.int32)
-# scan unroll factor: 8 is fastest on TPU v5e (measured); CPU tests use 1 for
-# quick compiles
+# unroll factor of the XLA predictor scans that remain (f32 replay past the
+# kernel's table bound, the opt-in scan predictor, the f64 scans); CPU tests
+# use 1 for quick compiles
 import os as _os
 _SCAN_UNROLL = int(_os.environ.get("TRICO_TPU_SCAN_UNROLL", "8"))
+
+# Route for the hand-written kernels, keyed on the JAX platform: the
+# Pallas-Triton replay kernel on CUDA GPUs, the XLA formulations on the CPU.
+_ROUTES = {"gpu": "triton", "cpu": "xla"}
+
+
+def kernel_route(platform: str | None = None) -> str:
+    """"triton" or "xla" for ``platform`` (default: ``jax.devices()[0]``'s).
+
+    Any platform without a route raises, naming it, rather than silently
+    running a path nobody measured there."""
+    p = platform or jax.devices()[0].platform
+    if p not in _ROUTES:
+        raise RuntimeError(
+            f"no device route for JAX platform {p!r}; trico-tpu runs on "
+            f"{sorted(_ROUTES)}")
+    return _ROUTES[p]
 
 
 def _norm_exponents(e1: int, e2: int) -> tuple[int, int]:
     return min((e1 >> 1) << 1, 30), min((e2 >> 1) << 1, 30)
 
 
-# Largest per-program value count verified bit-exact on TPU (16M slot
-# entries = 4 slots/value * 2^22 values; see scripts/xla_miscompile_repro.py)
+# Largest per-program value count verified bit-exact under the fence (16M
+# slot entries = 4 slots/value * 2^22 values; see
+# scripts/xla_miscompile_repro.py)
 _V2_VERIFIED_VALUES = 1 << 22
 
 
 def _row_block(L: int) -> int:
     """Max chunk rows any v2 device program instance sees at once.
 
-    XLA:TPU miscompiles the fused v2 parse at large array sizes (verified on
-    v5e: parse_f32_chunks_v2 drops residual bytes once the (C, 4L) slot
-    arrays reach ~32M entries — C=8192/L=1024 and C=2048/L=4096 both break,
-    while <=16M entries is bit-exact at both chunk lengths, CPU is exact at
-    every size, and optimization barriers do NOT fix it —
-    scripts/tpu_split_probe.py, scripts/tpu_l4096_scan.py). Running the same
+    A miscompile fence: the accelerator XLA backend this codec was first
+    built for dropped residual bytes in the fused v2 parse once the (C, 4L)
+    slot arrays reached ~32M entries (C=8192/L=1024 and C=2048/L=4096 both
+    broke, <=16M entries was bit-exact, CPU is exact at every size; the
+    minimized repro is scripts/xla_miscompile_repro.py). Running the same
     program per row block under ``lax.map`` is bit-exact, so every v2 entry
     point is row-blocked to a value-count budget (default 2^21 values ⇒ 8M
-    slot entries, a 4x safety margin). Also caps peak HBM per program.
+    slot entries, a 4x safety margin). Also caps peak device memory per
+    program. ``chip_smoke.py`` checks the unblocked canary shape on the GPU.
 
     ``TRICO_TPU_V2_ROW_BLOCK`` overrides the row count directly (tests);
     ``TRICO_TPU_V2_BLOCK_VALUES`` overrides the value budget — refused above
@@ -78,14 +97,14 @@ def _row_block(L: int) -> int:
         if rows * max(L, 1) > _V2_VERIFIED_VALUES and not unsafe:
             raise ValueError(
                 f"TRICO_TPU_V2_ROW_BLOCK={rows} exceeds the verified "
-                f"{_V2_VERIFIED_VALUES}-value XLA:TPU budget at L={L} "
+                f"{_V2_VERIFIED_VALUES}-value budget at L={L} "
                 "(set TRICO_TPU_V2_UNSAFE=1 to bypass for bisection)")
         return rows
     budget = int(_os.environ.get("TRICO_TPU_V2_BLOCK_VALUES", str(1 << 21)))
     if budget > _V2_VERIFIED_VALUES and not unsafe:
         raise ValueError(
             f"TRICO_TPU_V2_BLOCK_VALUES={budget} exceeds the verified "
-            f"{_V2_VERIFIED_VALUES}-value XLA:TPU budget "
+            f"{_V2_VERIFIED_VALUES}-value budget "
             "(set TRICO_TPU_V2_UNSAFE=1 to bypass for bisection)")
     return max(1, budget // max(L, 1))
 
@@ -136,39 +155,12 @@ def _onehot_write(table, idx, val, iota):
     return jnp.where(iota == idx[:, None], val[:, None], table)
 
 
-def _use_pallas() -> bool:
-    """Pallas kernels on real TPU backends (interpret mode is exact but slow;
-    the XLA scan is faster on CPU). Override with TRICO_TPU_PALLAS=0/1."""
-    import os
-
-    v = os.environ.get("TRICO_TPU_PALLAS")
-    if v is not None:
-        return v != "0"
-    return jax.default_backend() not in ("cpu",)
-
-
-def _pallas_tables_fit(L: int, e1: int, e2: int) -> bool:
-    """True when the Pallas one-hot kernel's VMEM footprint fits at its
-    minimum 128-lane block: 3 double-buffered (L,) streams plus the two
-    (T, 128) hash tables (fp_pallas._c_blk budget). Large exponents (e.g.
-    e2>=14 at L=4096) fall back to the sort predictor, as the pre-Pallas
-    default ordering did (ADVICE r2 low)."""
-    budget = 14 * 1024 * 1024
-    return (6 * L + (1 << e1) + (1 << e2)) * 128 * 4 <= budget
-
-
 def _predict_mode() -> str:
-    """Encode predictor backend: 'pallas' (VMEM one-hot scan kernel — the
-    fast path on real TPUs: 5.7 GB/s vs 1.0 for sort at e2=8, bit-identical,
-    scripts/tpu_predict_modes.py), 'sort' (closed-form, scan-free — the fast
-    path on CPU; cost independent of the hash exponents), or 'scan' (XLA
-    lane scan). Override with TRICO_TPU_PREDICT."""
-    import os
-
-    v = os.environ.get("TRICO_TPU_PREDICT")
-    if v in ("sort", "pallas", "scan"):
-        return v
-    return "pallas" if _use_pallas() else "sort"
+    """Encode predictor: 'sort' (closed-form, scan-free; cost independent of
+    the hash exponents — the default) or 'scan' (XLA lane scan). Override
+    with TRICO_TPU_PREDICT. Bit-identical."""
+    v = _os.environ.get("TRICO_TPU_PREDICT")
+    return v if v in ("sort", "scan") else "sort"
 
 
 @functools.partial(jax.jit, static_argnums=(1, 2))
@@ -178,19 +170,12 @@ def predict_f32_chunks(values: jax.Array, e1: int = 4, e2: int = 10):
     Returns (bcode (C, L) uint8, res (C, L) uint32). Packing these into the
     byte stream is a separate step (host packer or :func:`pack_f32_chunks`).
     Default backend is the closed-form sort predictor (`_predict_sort`) —
-    scan-free, cost independent of the hash exponents; the Pallas one-hot
-    scan kernel and the XLA lane scan remain selectable (TRICO_TPU_PREDICT).
-    All three are bit-identical.
+    scan-free, cost independent of the hash exponents; the XLA lane scan
+    remains selectable (TRICO_TPU_PREDICT). Both are bit-identical.
     """
     e1, e2 = _norm_exponents(e1, e2)
     C, L = values.shape
-    mode = _predict_mode()
-    if mode == "pallas" and _use_pallas() and _pallas_tables_fit(L, e1, e2):
-        from . import fp_pallas
-
-        xor1, xor2 = fp_pallas.predict_xors_pallas(values, e1, e2, False)
-        return _bcode_res_from_xors(xor1, xor2)
-    if mode in ("sort", "pallas") and e1 + max(L - 1, 1).bit_length() <= 32 \
+    if _predict_mode() == "sort" and e1 + max(L - 1, 1).bit_length() <= 32 \
             and e2 + max(L - 1, 1).bit_length() <= 32:
         return _bcode_res_from_xors(*_predict_sort(values, e1, e2))
     return _predict_scan(values, e1, e2)
@@ -250,31 +235,33 @@ def _prev_occurrence_multi(keys, payloads, key_bits: int):
 
     out_k[c, i] = payloads[k][c, j] for the largest j < i with keys[c, j] ==
     keys[c, i], else 0 — exactly a hash-table read after sequential writes,
-    but computed with two ``lax.sort`` passes instead of a scan: sort by
-    (key, pos), take the neighbor's payloads where the key matches, sort back
-    by pos. No sequential dependency, no gather, cost independent of the
-    table size (the win over the one-hot scan for large hash exponents — the
-    f64 default (20,20) would need 2^20-row tables). Requires
-    key_bits + ceil(log2 L) <= 32.
+    but computed with one ``lax.sort`` and one scatter instead of a scan: sort
+    by (key, pos), take the neighbor's payloads where the key matches, and
+    scatter them back to their positions. No sequential dependency, no
+    gather, cost independent of the table size (the win over the one-hot scan
+    for large hash exponents — the f64 default (20,20) would need 2^20-row
+    tables). Requires key_bits + ceil(log2 L) <= 32.
     """
     C, L = keys.shape
     assert key_bits + max(L - 1, 1).bit_length() <= 32, "sort key overflow"
     pos = jnp.broadcast_to(jnp.arange(L, dtype=jnp.uint32)[None, :], (C, L))
     sk = keys * jnp.uint32(L) + pos  # unique; orders by (key, pos)
-    sk_s, pos_s, *pay_s = jax.lax.sort((sk, pos) + tuple(payloads), num_keys=1)
+    sk_s, *pay_s = jax.lax.sort((sk,) + tuple(payloads), num_keys=1)
     key_s = sk_s // jnp.uint32(L)
     same = jnp.concatenate(
         [jnp.zeros((C, 1), bool), key_s[:, 1:] == key_s[:, :-1]], axis=1
     )
-    pred_s = [
-        jnp.where(
-            same,
-            jnp.concatenate([jnp.zeros((C, 1), jnp.uint32), p[:, :-1]], axis=1),
-            0,
-        )
-        for p in pay_s
-    ]
-    _, *preds = jax.lax.sort((pos_s,) + tuple(pred_s), num_keys=1)
+    # back to stream order with a scatter (positions are a permutation). An
+    # inverse lax.sort by position instead fails to compile on XLA:GPU inside
+    # the 4-device shard_map encode (its permutation-sort rewrite emits a
+    # scatter whose s32 combiner mismatches these u32 operands).
+    rows = jnp.arange(C, dtype=jnp.int32)[:, None]
+    dst = (sk_s % jnp.uint32(L)).astype(jnp.int32)
+    preds = []
+    for p in pay_s:
+        prev = jnp.concatenate([jnp.zeros((C, 1), jnp.uint32), p[:, :-1]], axis=1)
+        preds.append(jnp.zeros_like(p).at[rows, dst].set(
+            jnp.where(same, prev, 0), unique_indices=True))
     return preds
 
 
@@ -436,10 +423,14 @@ def replay_f32_chunks(bcodes: jax.Array, xors: jax.Array, e1: int = 4, e2: int =
 
 def _replay_impl(bcodes, xors, e1, e2):
     e1, e2 = _norm_exponents(e1, e2)
-    if _use_pallas() and _pallas_tables_fit(xors.shape[1], e1, e2):
-        from . import fp_pallas
+    if kernel_route() == "triton" and replay_triton.tables_fit(e1, e2):
+        return replay_triton.replay(bcodes, xors, e1, e2)
+    return _replay_scan(bcodes, xors, e1, e2)
 
-        return fp_pallas.replay_pallas(bcodes, xors, e1, e2, False)
+
+def _replay_scan(bcodes, xors, e1, e2):
+    """XLA replay: ``lax.scan`` over positions, chunks as lanes (normalized
+    exponents)."""
     C, L = xors.shape
     T1, T2 = 1 << e1, 1 << e2
     m2 = np.uint32((1 << e2) - 1)
@@ -485,10 +476,9 @@ def _glen32(bc):
 
 def _cumsum_l(x):
     """Inclusive cumsum along axis 1, hierarchical (8-wide leaf + group
-    level). XLA:TPU lowers a flat length-L cumsum to ~log2(L) full-array
-    shifted-add passes (~12 HBM round trips at L=4096) — this was the pack/
-    parse bottleneck. Two levels cut it to ~3 leaf passes + a G-length
-    cumsum at 1/8 the size."""
+    level): ~3 leaf passes + a G-length cumsum at 1/8 the size, instead of a
+    flat length-L cumsum that an XLA backend may lower to ~log2(L) shifted-add
+    passes over the whole array."""
     C, L = x.shape
     if L <= 512:
         return jnp.cumsum(x, axis=1)
@@ -508,9 +498,8 @@ def parse_f32_chunks(payloads: jax.Array, L: int, e1: int = 4, e2: int = 10):
     The reference layout interleaves tags with residuals, so tag positions are
     data-dependent: this parse scans over the L/8 groups (vectorized across
     chunks). It exists for tests and the multichip dryrun; production decode
-    uses the v2 layout (:func:`parse_f32_chunks_v2`, no scan, no gather —
-    TPU gathers measure ~50M elem/s so a pointer-jumping parallel parse of
-    this layout is *slower* than the scan) or the native host parser.
+    uses the v2 layout (:func:`parse_f32_chunks_v2`, no scan, no gather) or
+    the native host parser.
     """
     C, B = payloads.shape
     assert L % 8 == 0
@@ -552,7 +541,7 @@ def decode_f32_chunks(payloads: jax.Array, L: int, e1: int = 4, e2: int = 10):
 
 
 # ---------------------------------------------------------------------------
-# v2 "TPU layout" chunk payloads
+# v2 ("tpu" layout flag) chunk payloads
 #
 # Same bytes as a reference FP substream, reordered for data-parallel decode:
 #   [u8 hash_info][u32 BE count]  -- identical 5-byte header
@@ -566,7 +555,7 @@ def decode_f32_chunks(payloads: jax.Array, L: int, e1: int = 4, e2: int = 10):
 
 
 # ---------------------------------------------------------------------------
-# monotone log-shift data movement (the TPU-fast alternative to lax.sort)
+# monotone log-shift data movement (an alternative to lax.sort)
 #
 # Both byte compaction (pack) and byte expansion (parse) move element i from
 # position p_i to position q_i where BOTH sequences are strictly increasing
@@ -613,12 +602,7 @@ def _logshift_passes(word, pb, S, direction):
 
 
 def _logshift(word, pb, S, direction):
-    """Dispatch the log-shift network: VMEM Pallas kernel on real TPUs (one
-    HBM round-trip), XLA shifted-select passes elsewhere. Bit-identical."""
-    if _use_pallas():
-        from . import fp_pallas
-
-        return fp_pallas.logshift_pallas(word, pb, direction)
+    """Run the log-shift network and mask the payload bits."""
     return _logshift_passes(word, pb, S, direction) & jnp.uint32((1 << pb) - 1)
 
 
@@ -642,7 +626,7 @@ def _expand_monotone(payload, shift, valid, pb):
 def pack_f32_chunks_v2(bcode: jax.Array, res: jax.Array, e1: int = 4, e2: int = 10):
     """Device packing into v2 layout: (C, L) (bcode, res) → ((C, B) u8, sizes).
 
-    Row-blocked (`_row_block`) to dodge the XLA:TPU large-batch miscompile."""
+    Row-blocked (`_row_block`, the large-batch miscompile fence)."""
     return _map_row_blocks(
         lambda b, q: _pack_f32_chunks_v2_impl(b, q, e1, e2),
         bcode.shape[1], bcode, res)
@@ -705,8 +689,7 @@ def parse_f32_chunks_v2(payloads: jax.Array, L: int, e1: int = 4, e2: int = 10):
     log-shift passes (see `_compact_monotone`/`_expand_monotone`): pass #1
     compacts slot ids to rank order (the inverse of the pack compaction),
     pass #2 expands the region bytes back to their slots. No sorts, no
-    gathers, no scans. Row-blocked: XLA:TPU miscompiles the fused parse at
-    C=8192/L=1024 (drops residual bytes; see `_row_block`).
+    gathers, no scans. Row-blocked: the miscompile fence (`_row_block`).
     """
     return _map_row_blocks(
         lambda p: _parse_f32_chunks_v2_impl(p, L, e1, e2), L, payloads)
@@ -776,17 +759,13 @@ def encode_f32_chunks_v2(values: jax.Array, e1: int = 4, e2: int = 10):
 #
 # The big-table (14,18) candidate is what closes the BASELINE "size <= the
 # reference" gate on CAD/grid-class data (-9..-15%); (4,10) recovers the
-# scan class. (8,14) adds <0.12% anywhere — dropped. Cost model on device:
-# (0,6)/(4,6)/(4,10) fit the Pallas VMEM one-hot kernel (predict passes at
-# ~5.7 GB/s); (14,18) exceeds the table budget and runs through the sort
-# predictor (~1.0 GB/s, cost independent of table size — `_predict_sort`),
-# so the adaptive encode lands at ~0.65 GB/s/chip — ratio is the hard
-# BASELINE target, and the v5e-16 aggregate (~10 GB/s) still clears the
-# >5 GB/s throughput target. The speed-first pair remains available as
-# F32_TPU_CANDIDATES_FAST. Decode: (14,18) winners exceed the device
-# one-hot replay bound (2^13 rows) and decode on host threads; the rest
-# stay sharded gather-free. Self-describing per-chunk hash_info keeps any
-# mix decodable (fps.c:120-121, 214-217).
+# scan class. (8,14) adds <0.12% anywhere — dropped. Every candidate runs
+# through the sort predictor (cost independent of table size —
+# `_predict_sort`); the speed-first pair remains available as
+# F32_TPU_CANDIDATES_FAST. Decode: (14,18) winners exceed the device replay
+# bound (chunked.decode_chunked) and decode on host threads; the rest stay
+# on the device. Self-describing per-chunk hash_info keeps any mix decodable
+# (fps.c:120-121, 214-217).
 F32_TPU_CANDIDATES = ((0, 6), (4, 6), (4, 10), (14, 18))
 F32_TPU_CANDIDATES_FAST = ((0, 6), (4, 6))
 
@@ -808,80 +787,12 @@ def encode_f32_chunks_v2_adaptive(values: jax.Array,
         values.shape[1], values)
 
 
-def _predict_bcode_res(values, e1, e2):
-    """(bcode, res) via the backend-appropriate predictor (normalized e1/e2)."""
-    if (_predict_mode() == "pallas" and _use_pallas()
-            and _pallas_tables_fit(values.shape[1], e1, e2)):
-        from . import fp_pallas
-
-        return _bcode_res_from_xors(
-            *fp_pallas.predict_xors_pallas(values, e1, e2, False))
-    return _bcode_res_from_xors(*_predict_sort(values, e1, e2))
-
-
-def _candidate_xors(values, norm):
-    """(xor1, xor2) per normalized candidate, sharing predictor work.
-
-    The FCM xor depends only on e1 and the DFCM xor only on e2 (fps.c:76-84
-    — independent tables), so candidates are grouped by e2: each group with
-    several members computes its shared DFCM xor once via one fused
-    (e1_main, e2) Pallas pass, the remaining nonzero e1s via one FCM-only
-    multi-exponent pass, and e1=0 as plain ``v ^ vprev``. Groups whose
-    tables exceed the VMEM budget (and singleton groups) fall back to one
-    full predictor per candidate. Bit-identical in every arrangement.
-    """
-    C, L = values.shape
-    use_pallas = (_predict_mode() == "pallas" and _use_pallas())
-    if not use_pallas:
-        return [_candidate_xors_one(values, e1, e2) for (e1, e2) in norm]
-    from . import fp_pallas
-
-    results = [None] * len(norm)
-    by_e2: dict = {}
-    for i, (e1, e2) in enumerate(norm):
-        by_e2.setdefault(e2, []).append(i)
-    for e2, idxs in by_e2.items():
-        e1s = [norm[i][0] for i in idxs]
-        nonzero = [e1 for e1 in dict.fromkeys(e1s) if e1]
-        fusable = (
-            len(idxs) > 1 and e2 > 0 and nonzero
-            and len(set(e1s)) == len(e1s)
-            and _pallas_tables_fit(L, max(nonzero), e2))
-        if not fusable:
-            for i in idxs:
-                results[i] = _candidate_xors_one(values, *norm[i])
-            continue
-        main = nonzero[0]
-        xor1 = {}
-        xor1[main], xor2 = fp_pallas.predict_xors_pallas(values, main, e2, False)
-        rest = tuple(nonzero[1:])
-        if rest:
-            for e1, x in zip(rest, fp_pallas.predict_fcm_xors_pallas(values, rest)):
-                xor1[e1] = x
-        if 0 in e1s:
-            vprev = jnp.concatenate(
-                [jnp.zeros((C, 1), jnp.uint32), values[:, :-1]], axis=1)
-            xor1[0] = values ^ vprev
-        for i in idxs:
-            results[i] = (xor1[norm[i][0]], xor2)
-    return results
-
-
-def _candidate_xors_one(values, e1, e2):
-    if (_predict_mode() == "pallas" and _use_pallas()
-            and _pallas_tables_fit(values.shape[1], e1, e2)):
-        from . import fp_pallas
-
-        return fp_pallas.predict_xors_pallas(values, e1, e2, False)
-    return _predict_sort(values, e1, e2)
-
-
 def _encode_f32_chunks_v2_adaptive_impl(values, candidates):
     C, L = values.shape
     G = L // 8
     norm = [_norm_exponents(e1, e2) for (e1, e2) in candidates]
     bcs, ress, sizes = [], [], []
-    for (xor1, xor2) in _candidate_xors(values, norm):
+    for (xor1, xor2) in (_predict_sort(values, e1, e2) for (e1, e2) in norm):
         bc, res = _bcode_res_from_xors(xor1, xor2)
         bcs.append(bc)
         ress.append(res)
@@ -984,7 +895,7 @@ def _pad_rows(arr: np.ndarray, C: int) -> np.ndarray:
 
 def encode_f32(values_u32: np.ndarray, chunk_len: int, e1: int = 4, e2: int = 10,
                device_pack: bool = False, layout: str = "ref"):
-    """Encode a flat uint32 stream in TPU chunks.
+    """Encode a flat uint32 stream in device chunks.
 
     Returns (payloads (C, B) uint8, sizes (C,) int64, tail_values). The tail
     (n % chunk_len values) is left for the caller's host codec.

@@ -1,10 +1,10 @@
-"""TPU-parallel LZ4 match finding.
+"""Device-parallel LZ4 match finding.
 
 LZ4 emission is inherently sequential (the greedy parse walks the block), but
 the expensive part — match *search* — is not. Division of labor:
 
 * **Device** (this module): for every position of every block, find the best
-  match candidate, using only TPU-fast primitives:
+  match candidate, using only sort and scan primitives (no gathers):
   - previous-occurrence of the 4-byte-window hash (one stable multi-operand
     ``lax.sort`` carrying position + window words, like the FP predictor);
     candidates are verified against the carried window, so no gathers;
@@ -28,9 +28,6 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-
-BLOCK = 4096  # LZ4 search block: offsets fit trivially, sorts stay fast
-
 
 @functools.partial(jax.jit, static_argnums=())
 def find_matches(blocks: jax.Array):
@@ -125,7 +122,7 @@ def compress_block_with_candidates(block: np.ndarray, offset: np.ndarray,
     return out[:sz].tobytes()
 
 
-def compress_plane(plane: np.ndarray, block: int = BLOCK, use_tpu: bool | None = None):
+def compress_plane(plane: np.ndarray, block: int = 4096):
     """Compress a byte plane as independent LZ4 blocks of `block` bytes.
 
     Returns a list of per-block LZ4 payloads (each independently decodable).
@@ -140,8 +137,6 @@ def compress_plane(plane: np.ndarray, block: int = BLOCK, use_tpu: bool | None =
     if C == 0:
         return [native.lz4_compress(plane)] if n else []
     blocks = plane[: C * block].reshape(C, block)
-    # jax match search works on every backend; `use_tpu` kept for API compat
-    del use_tpu
     off, rle = find_matches(jnp.asarray(blocks))
     # one threaded native call emits every block (no per-block Python loop)
     return native.lz4_emit_blocks(

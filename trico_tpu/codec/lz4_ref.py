@@ -4,7 +4,7 @@ Implements the public LZ4 *block* format: token = 4-bit literal run | 4-bit
 match length (biased by MINMATCH=4), 255-extension bytes, u16 little-endian
 offsets, last-5-bytes-literals / 12-byte end-of-block encoder rules. The
 compressor here favours simplicity (greedy dict matcher) — the production
-paths are the native C++ codec and the TPU match finder.
+paths are the native C++ codec and the device match finder.
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
-"""Word-funnel residual packing — the fast TPU path for FP-substream emission.
+"""Word-funnel residual packing — the device path for FP-substream emission.
 
 The original device pack (fp_jax._pack_f32_chunks_v2_impl) moves *bytes*: every
 value gets 4 candidate byte slots and a monotone log-shift network compacts the
 (C, 4L) slot array — ~log2(4L) full passes over 4L u32 slots per chunk. This
 module reformulates emission at u32-*word* granularity so the heavy data
 movement runs over L lanes instead of 4L slots, with byte alignment handled by
-funnel shifts (classic CPU varint-packing trick, rebuilt for the VPU):
+funnel shifts (classic CPU varint-packing trick, rebuilt as array ops):
 
 1. group 4 consecutive values; build each group's dense byte image as 4
    big-endian u32 words by funnel shifts of the values' left-aligned residuals
@@ -40,12 +40,6 @@ def _cumsum_l(x):
     return impl(x)
 
 
-def _use_pallas() -> bool:
-    from .fp_jax import _use_pallas as impl
-
-    return impl()
-
-
 def _pair_compact_or_xla(carrier, payload, nbits):
     """Merging left-compaction over lanes: XLA shifted-select formulation.
 
@@ -78,16 +72,11 @@ def _pair_compact_or(dest, payload, live, L):
     """Dispatch the merging compaction: items at lane s → lane dest[s].
 
     dest must be nondecreasing and s - dest[s] nondecreasing over live lanes.
-    VMEM Pallas kernel on real TPUs, XLA passes elsewhere (bit-identical).
     """
     disp = jnp.arange(L, dtype=jnp.int32)[None, :] - dest
     carrier = jnp.where(live, ((disp.astype(jnp.uint32)) << 1) | 1, 0)
     payload = jnp.where(live, payload, 0)
     nbits = max(L - 1, 1).bit_length()
-    if _use_pallas():
-        from .fp_pallas import pair_compact_or_pallas
-
-        return pair_compact_or_pallas(carrier, payload, nbits)
     return _pair_compact_or_xla(carrier, payload, nbits)
 
 

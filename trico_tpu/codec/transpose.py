@@ -3,7 +3,7 @@
 Equivalent of the reference ``trico/transpose_aos_to_soa.c`` scalar loops:
 interleaved xyz/uv streams become per-component planes, and integer streams
 become little-endian byte planes (plane 0 = least-significant byte,
-transpose_aos_to_soa.c:103-122). On TPU these are jnp reshape/transpose ops in
+transpose_aos_to_soa.c:103-122). On device these are jnp reshape/transpose ops in
 :mod:`trico_tpu.codec.fp_jax`; here NumPy strided views do the same work at
 memory bandwidth.
 """

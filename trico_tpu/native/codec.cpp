@@ -10,7 +10,7 @@
 //    compliant LZ4 block decoder/encoder.
 //
 // This is the fast host path of the framework (used by the archive layer for
-// single-stream reference-compatible mode); the TPU path lives in
+// single-stream reference-compatible mode); the device path lives in
 // trico_tpu/codec/fp_jax.py.
 
 #include <algorithm>
@@ -791,7 +791,7 @@ EXPORT int64_t tt_fp64_decode_blocks(const uint8_t* src, const int64_t* src_off,
 
 // ------------------------------------------------- chunked pack / parse
 //
-// The TPU path computes per-value (bcode, residual) on device (the predictor
+// The device path computes per-value (bcode, residual) on device (the predictor
 // math); these helpers do the byte-level (de)marshalling on the host at memory
 // bandwidth. Each chunk payload is a standard FP substream.
 
@@ -1611,7 +1611,7 @@ EXPORT int64_t tt_lz4_compress_blocks(const uint8_t* src, const int64_t* src_off
 
 // ---------------------------------------------------------------------------
 // BP32: bit-plane-packed zigzag-delta integer codec (format: bp_ref.py).
-// The TPU-native integer coder for index-like streams — groups of 32 values
+// The device integer coder for index-like streams — groups of 32 values
 // share a bit width, each group stored as `width` 32-bit bit-planes (bit j of
 // plane b = bit b of the group's j-th zigzag delta). Parallel-decodable by
 // construction (plane offsets are a cumsum of the width header), unlike the

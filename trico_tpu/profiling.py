@@ -3,7 +3,7 @@
 The reference has only ad-hoc ``tic()/toc()`` in its tests (timer.h:7-23);
 here tracing is a first-class subsystem: every codec stage can be timed with
 :class:`StageTimer`, results aggregate into GB/s counters, and
-:func:`trace` wraps a region in a ``jax.profiler`` trace for TPU timeline
+:func:`trace` wraps a region in a ``jax.profiler`` trace for the device timeline
 capture (view with TensorBoard / xprof).
 
 Usage::
@@ -17,7 +17,7 @@ Usage::
         ...
     print(prof.report())
 
-    with trace("/tmp/trico-trace"):       # TPU timeline
+    with trace("/tmp/trico-trace"):       # device timeline
         encode(...)
 """
 
@@ -92,7 +92,7 @@ class StageTimer:
 
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """Capture a JAX/TPU profiler trace for the enclosed region."""
+    """Capture a JAX profiler trace for the enclosed region."""
     import jax
 
     jax.profiler.start_trace(log_dir)
